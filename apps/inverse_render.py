@@ -29,7 +29,7 @@ def main(argv=None) -> int:
     ap.add_argument("--lr", type=float, default=0.03)
     ap.add_argument("--fields", nargs="+", default=["albedo", "roughness"])
     ap.add_argument("--out", default=None, help="write before/after/target PNG")
-    ap.add_argument("--device", default=None, choices=[None, "cpu", "tpu"])
+    ap.add_argument("--device", default=None, choices=[None, "cpu", "gpu"])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 

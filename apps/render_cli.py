@@ -41,7 +41,7 @@ def main(argv=None) -> int:
                     help="write progressive state here after each chunk")
     ap.add_argument("--resume", default=None,
                     help="resume from a saved state file")
-    ap.add_argument("--device", default=None, choices=[None, "cpu", "tpu"],
+    ap.add_argument("--device", default=None, choices=[None, "cpu", "gpu"],
                     help="force JAX platform")
     ap.add_argument("--seed", type=int, default=None)
     ap.add_argument("--profile", default=None, metavar="DIR",

@@ -1,10 +1,11 @@
 // Native BVH builder for spt_tpu — the host-side scene-compile engine.
 //
-// Role: the TPU-native equivalent of Embree's BVH construction (the
+// Role: the equivalent of Embree's BVH construction (the
 // reference's rtcCommitScene path, CPUPathTracer.cpp:328-404, builds its
 // acceleration structure in native code on the host; so do we).  Python
 // loads this via ctypes (spt_tpu/core/bvh.py) and falls back to a numpy
-// median-split builder when the .so is absent.
+// median-split builder when the library cannot be built (it is built
+// from this file into native/build/ at first use: spt_tpu/utils/native.py).
 //
 // Algorithm: top-down binned SAH (16 bins on the widest centroid axis,
 // median-split fallback for degenerate distributions), emitting nodes in

@@ -1,17 +1,18 @@
 // Native display bridge for spt_tpu — host-side output conversion + PNG.
 //
-// Role: the TPU-native equivalent of the reference's display path.  The
+// Role: the equivalent of the reference's display path.  The
 // reference resolves its float accumulation buffer to packed RGBA8888 on
 // the CPU every frame (CPUPathTracer.cpp:87-117: mean over frame count,
 // clamp to [0,1], pack u32 with R in the high byte via Color.h:7-10) and
 // streams it into an SDL texture (src/renderer/Texture2D.cpp:61-68,
-// src/App.cpp:236-239).  Headless TPU equivalent: gather the device
+// src/App.cpp:236-239).  Headless equivalent here: gather the device
 // accumulation tile to host, then this native code does the per-pixel
 // resolve loop (mean / exposure / tonemap / gamma / quantize / pack) and
 // PNG encoding — the hot host-side loops, in C++ as the reference's are.
 //
 // Python loads this via ctypes (spt_tpu/io/native_display.py) and falls
-// back to the numpy/pure-Python implementations when the .so is absent.
+// back to the numpy/pure-Python implementations when the library cannot
+// be built (it is built from this file into native/build/ at first use).
 // Semantics match spt_tpu/core/color.py::finalize_image + pack_rgba8
 // exactly (tested in tests/test_native_display.py).
 //

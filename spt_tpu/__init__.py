@@ -1,10 +1,11 @@
-"""spt_tpu — a TPU-native differentiable path tracer.
+"""spt_tpu — a differentiable path tracer in JAX.
 
 A from-scratch JAX/XLA/Pallas framework with the capabilities of the
-reference C++ renderer (imisumi/software-path-tracer) re-designed for TPUs:
-SoA wavefront integration, MXU-shaped batched intersection, flattened BVH,
-counter-based RNG, materials/NEE/MIS, path-replay gradients, and multi-chip
-sharding.  See SURVEY.md for the reference analysis this builds to.
+reference C++ renderer (imisumi/software-path-tracer), for NVIDIA GPUs:
+SoA wavefront integration, batched all-pairs intersection, flattened BVH,
+a Triton forward megakernel, counter-based RNG, materials/NEE/MIS,
+path-replay gradients, and multi-device sharding.  See SURVEY.md for the
+reference analysis this builds to.
 """
 
 from .core.camera import Camera, ReferenceCamera

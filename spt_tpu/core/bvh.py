@@ -1,6 +1,6 @@
 """Flattened, array-indexed BVH over sphere primitives.
 
-The TPU-native replacement for Embree's opaque pointer BVH (the reference
+The replacement for Embree's opaque pointer BVH (the reference
 builds one implicitly via ``rtcCommitScene`` — CPUPathTracer.cpp:328-404 —
 and traverses with ``rtcIntersect1`` :227).  Design:
 
@@ -27,12 +27,13 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import os
 from functools import partial
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+from ..utils import native
 
 MAX_LEAF = 4  # primitives per leaf (static unroll width in traversal)
 
@@ -59,19 +60,10 @@ class BVH:
 # Native builder (C++ binned SAH, ctypes).
 # ---------------------------------------------------------------------------
 
-_NATIVE_PATH = os.path.join(os.path.dirname(__file__), "..", "..", "native",
-                            "libbvh_builder.so")
-_native = None
-
-
 def _load_native():
-    global _native
-    if _native is not None:
-        return _native
-    path = os.path.abspath(_NATIVE_PATH)
-    if not os.path.exists(path):
+    lib = native.load("bvh_builder")
+    if lib is None:
         return None
-    lib = ctypes.CDLL(path)
     lib.spt_build_bvh.restype = ctypes.c_int
     lib.spt_build_bvh.argtypes = [
         ctypes.POINTER(ctypes.c_float),   # centers (n*3)
@@ -85,7 +77,6 @@ def _load_native():
         ctypes.POINTER(ctypes.c_int),     # out node_count (2n)
         ctypes.POINTER(ctypes.c_int),     # out prim_idx (n)
     ]
-    _native = lib
     return lib
 
 
@@ -386,8 +377,8 @@ def intersect_bvh(o, d, centers, radii, bvh: BVH, tmin: float = 1e-3,
 # SoA (component-array) traversal — the large-scene fast path.
 #
 # Same tree, same visit order, but every per-ray quantity is a separate
-# (N,) array: no (N, 3) intermediates anywhere (TPU pads a trailing 3 to
-# 128 lanes), and all node/primitive attribute fetches are 1-D gathers.
+# (N,) array: no (N, 3) intermediates anywhere, and all node/primitive
+# attribute fetches are 1-D gathers.
 # ---------------------------------------------------------------------------
 
 

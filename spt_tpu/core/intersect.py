@@ -5,15 +5,15 @@ The reference delegates intersection to Embree's BVH + per-ray
 geometries; the analytic quadratic it relies on is documented at
 /root/reference/sphere.md:126-188 (a=|D|², b=2L·D, c=|L|²−r²).
 
-TPU-native design: rays are SoA batches and *all primitives are tested at
-once* in a (rays × spheres) broadcast grid, compiled by XLA into fused
-VPU loops (the (T,P,3) intermediates below never materialize — each is
+Design: rays are SoA batches and *all primitives are tested at once* in a
+(rays × spheres) broadcast grid, which XLA compiles into fused elementwise
+loops (the (T,P,3) intermediates below never materialize — each is
 consumed by an immediately following reduction).  The compact
 ``oc = c − o`` form is used because the algebraically equivalent expanded
-form (two (T,3)×(3,P) matmuls, MXU-friendly) loses ~10 bits to cancellation
-when scene coordinates are large relative to hit distances, which flips
-grazing hits; ``intersect_spheres_mxu`` keeps that form available for
-tile-local Pallas use where coordinates can be re-centered first.
+form (two (T,3)×(3,P) matrix products) loses ~10 bits to cancellation when
+scene coordinates are large relative to hit distances, which flips grazing
+hits.  There is no matrix product here, so no ``precision`` setting is
+involved.
 
 Convention: directions need not be unit length (``a = |d|²`` is kept), hit
 distance must satisfy t > tmin (the reference's tnear = 1e-3), missing rays
@@ -58,32 +58,6 @@ def intersect_spheres(o, d, centers, radii, valid, tmin=TMIN, tmax=jnp.inf):
     a = jnp.sum(d * d, axis=-1, keepdims=True)          # (T, 1)
     b = jnp.sum(d[..., None, :] * oc, axis=-1)          # (T, P)
     c = jnp.sum(oc * oc, axis=-1) - radii * radii       # (T, P)
-    t, ok = _quadratic_t(b, a, c, tmin)
-    hit = ok & (t < tmax) & valid
-    t = jnp.where(hit, t, jnp.inf)
-    t_best = jnp.min(t, axis=-1)
-    hit_id = jnp.argmin(t, axis=-1).astype(jnp.int32)
-    hit_id = jnp.where(jnp.isfinite(t_best), hit_id, -1)
-    return t_best, hit_id
-
-
-def intersect_spheres_mxu(o, d, centers, radii, valid, tmin=TMIN,
-                          tmax=jnp.inf):
-    """Expanded-form variant whose inner products are (T,3)×(3,P) matmuls.
-
-    Maps the search onto the MXU — the right shape for tile-local Pallas
-    kernels *after re-centering coordinates on the tile* (subtract a local
-    origin from o and centers first); without re-centering it flips grazing
-    hits when |coords|² ≫ r².  Contract matches ``intersect_spheres``.
-    """
-    f32 = o.dtype
-    d_dot_c = jnp.matmul(d, centers.T, preferred_element_type=f32)
-    o_dot_c = jnp.matmul(o, centers.T, preferred_element_type=f32)
-    a = jnp.sum(d * d, axis=-1, keepdims=True)
-    o2 = jnp.sum(o * o, axis=-1, keepdims=True)
-    c2r2 = jnp.sum(centers * centers, axis=-1) - radii * radii
-    b = d_dot_c - jnp.sum(d * o, axis=-1, keepdims=True)
-    c = o2 - 2.0 * o_dot_c + c2r2
     t, ok = _quadratic_t(b, a, c, tmin)
     hit = ok & (t < tmax) & valid
     t = jnp.where(hit, t, jnp.inf)

@@ -4,7 +4,7 @@ The reference has *no* material system in its live path — every surface uses
 a fixed 0.7 albedo Lambertian (CPUPathTracer.cpp:260); a material node type
 exists only as an enum value (Scene.h:19-24) and the dead ``#elif`` design
 sketches a real material store (Scene.h:229-353).  This module builds the
-real thing, TPU-style: a flat SoA *material table* — one row per material,
+real thing as a flat SoA *material table* — one row per material,
 integer material ids on primitives — so shading is branchless gather +
 select over the whole wavefront (no per-ray virtual dispatch).
 

@@ -1,4 +1,4 @@
-"""Random number generation for the TPU path tracer.
+"""Random number generation for the path tracer.
 
 Two RNG disciplines live here:
 
@@ -17,7 +17,8 @@ Two RNG disciplines live here:
    path-replay backward consume identical streams regardless of device
    sharding, vectorization order, or backend (pure-JAX vs Pallas — the same
    integer ops run in both).  This replaces the reference's stateful RNG the
-   TPU-native way: no sequential state to thread, embarrassingly parallel.
+   data-parallel way: no sequential state to thread, embarrassingly
+   parallel.
 
 All functions are plain jnp uint32/float32 ops — usable inside jit, vmap,
 shard_map, and Pallas kernels alike.
@@ -80,7 +81,7 @@ _H_MUL3 = np.uint32(0xC2B2AE35)  # murmur3 finalizer constant
 
 
 def hash_u32(x):
-    """PCG output hash of a uint32 — fast, good avalanche, VPU-friendly."""
+    """PCG output hash of a uint32 — fast, good avalanche, branch-free."""
     x = jnp.asarray(x, jnp.uint32)
     state = x * _LCG_MUL + _LCG_INC
     shift = (state >> np.uint32(28)) + np.uint32(4)
@@ -117,7 +118,6 @@ def counter_uniform(pixel, sample, bounce_dim, seed=0):
     """Stateless uniform in [0, 1)."""
     bits = counter_bits(pixel, sample, bounce_dim, seed)
     # Take the top 24 bits -> exactly representable in f32, uniform in [0,1).
-    # The int32 hop is for Mosaic (no direct u32->f32 cast on TPU); the value
-    # fits in 24 bits so it is lossless.
+    # The value fits in 24 bits, so the int32 hop is lossless.
     return (bits >> np.uint32(8)).astype(jnp.int32).astype(jnp.float32) \
         * np.float32(1.0 / (1 << 24))

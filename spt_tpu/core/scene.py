@@ -13,7 +13,7 @@ configuration, and emissive-sphere area lights (the dead ``#elif`` design the
 reference never compiled — Scene.h:229-353 — realized here).
 
 ``Scene.compile()`` lowers the graph to ``SceneData`` — flat SoA device
-arrays (the TPU-native analog of the reference's per-sphere Embree geometry
+arrays (the analog of the reference's per-sphere Embree geometry
 rebuild, CPUPathTracer.cpp:328-404): sphere centers/radii/material ids padded
 to a static size, the material table, light index list, and sky parameters.
 Static padding keeps XLA shapes stable across scene edits of the same
@@ -36,7 +36,7 @@ from .bvh import BVH, build_bvh
 from .materials import MaterialBuilder, MaterialTable, default_table
 
 # Scenes larger than this get a BVH at compile time; smaller ones use the
-# brute-force MXU-shaped all-primitive test, which wins below ~1k spheres.
+# brute-force all-primitive test.  Not measured on a GPU yet.
 BVH_AUTO_THRESHOLD = 512
 
 # Sky modes.
@@ -140,7 +140,7 @@ class SphereObject(SceneNode):
 class SceneData:
     """Compiled device scene: flat SoA arrays, statically padded.
 
-    The TPU-native replacement for the reference's Embree scene commit
+    The replacement for the reference's Embree scene commit
     (CPUPathTracer.cpp:328-404).  ``prim_valid`` masks padding lanes so the
     capacity bucket (next power of two) — not the live count — sets XLA
     shapes.

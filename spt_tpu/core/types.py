@@ -2,9 +2,9 @@
 
 The reference declares AoS PODs — ``Ray {origin, direction}``, float-pixel
 ``RenderResult``, ``RenderRequest`` (/root/reference/libs/render/include/
-render/Types.h:11-40; all dead code there, live here).  The TPU-native forms
+render/Types.h:11-40; all dead code there, live here).  The forms here
 are SoA batches: a ``RayBatch`` is arrays of components, not an array of
-structs, so every field maps straight onto VPU lanes.
+structs, so every field is one contiguous array.
 """
 
 from __future__ import annotations

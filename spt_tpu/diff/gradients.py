@@ -86,10 +86,10 @@ def make_render_fn(scene: SceneData, camera, width: int, height: int, *,
     accept boundaries depend on throughput and would add gradient
     discontinuities for no variance benefit at optimization depths.
 
-    Uses the SoA fast-path integrator everywhere its layout applies (it
-    keeps AD residuals O(N) on TPU): static-unroll mode for Cornell-class
-    scenes, gather+BVH mode for large ones.  Mid-size scenes compiled
-    without a BVH fall back to the AoS brute-force integrator.
+    Uses the SoA integrator everywhere its layout applies: static-unroll
+    mode for Cornell-class scenes, gather+BVH mode for large ones.  Mid-size
+    scenes compiled without a BVH fall back to the AoS brute-force
+    integrator.
     """
     from ..core.bvh import refit_bvh
     from ..engine import integrator_soa
@@ -153,25 +153,13 @@ class InverseRenderer:
     # False: reuse ids 0..spp — deterministic loss, monotone convergence;
     # right when the target was rendered with the same ids (self-calibration).
     rotate_samples: bool = True
-    # "soa": jax.grad through the SoA integrator (any platform).
-    # "pallas": fused fwd+bwd megakernel via custom_vjp (TPU; Cornell-class
-    # scenes) — same estimator, ~6x faster per step.
-    backend: str = "soa"
 
     def __post_init__(self):
         import optax
         h, w = self.target.shape[:2]
-        if self.backend == "pallas":
-            from . import pallas_diff
-            pr = pallas_diff.make_pallas_render_fn(
-                self.scene, self.camera, w, h, spp=self.spp_per_step,
-                max_bounces=self.max_bounces, use_nee=self.use_nee,
-                seed=self.seed)
-            self.render_fn = lambda p, ids: pr(p, ids[0])
-        else:
-            self.render_fn = make_render_fn(
-                self.scene, self.camera, w, h, max_bounces=self.max_bounces,
-                use_nee=self.use_nee, seed=self.seed)
+        self.render_fn = make_render_fn(
+            self.scene, self.camera, w, h, max_bounces=self.max_bounces,
+            use_nee=self.use_nee, seed=self.seed)
         self.loss_fn = make_loss_fn(self.render_fn, self.target)
         self.params = get_params(self.scene, self.fields)
         self.opt = optax.adam(self.learning_rate)

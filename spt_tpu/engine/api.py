@@ -13,7 +13,8 @@ PathTracer.cpp:9-22) and its progressive invalidation protocol
   * frame_count == 0 -> zero the accumulation buffer
 
 Backends: ``"jax"`` (pure-JAX wavefront integrator — differentiable oracle)
-and ``"pallas"`` (fused TPU megakernel).  Both share this session logic; they
+and ``"pallas"`` (Triton megakernel / SoA integrator, engine/pallas_backend).
+Both share this session logic; they
 differ only in the jitted sample function.  Unknown backends raise, matching
 the reference factory's throw (PathTracer.cpp:19-20).
 """

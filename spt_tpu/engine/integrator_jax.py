@@ -12,7 +12,7 @@ Two integrators:
   lighting, max 4 bounces, Russian roulette after bounce 2, and the
   bit-exact stateful hash RNG.  The per-pixel recursive CPU loop becomes a
   masked SoA wavefront: every bounce intersects the *whole* ray batch via
-  MXU-shaped batched sphere tests, lanes deactivate on miss/termination.
+  batched all-pairs sphere tests, lanes deactivate on miss/termination.
 
 * ``render_megasample`` — the framework-native integrator: sub-pixel
   jittered positionable camera, material table (Lambert / GGX metal /
@@ -57,7 +57,7 @@ _CAM_SLOT_LV = 3
 
 def scene_intersect(scene: SceneData, o, d, tmax=jnp.inf):
     """Nearest-hit dispatch: BVH traversal when the compiled scene carries
-    one (large scenes), MXU-shaped brute force otherwise.  The choice is
+    one (large scenes), all-pairs brute force otherwise.  The choice is
     static (pytree structure), so each variant jit-specializes cleanly."""
     if scene.bvh is not None:
         return intersect_bvh(o, d, scene.centers, scene.radii, scene.bvh,
@@ -120,8 +120,7 @@ def sample_env_map_soa(env, dx, dy, dz):
     """``sample_env_map`` on component arrays -> (r, g, b) components.
 
     Bit-identical math to ``sample_env_map`` but never materializes a
-    trailing-3 tensor (TPU pads 3 lanes to 128 — see integrator_soa
-    docstring); gathers run on flat per-channel tables instead.
+    trailing-3 tensor; gathers run on flat per-channel tables instead.
     """
     he, we = env.shape[0], env.shape[1]
     flat = env.reshape(he * we, 3)
@@ -545,8 +544,7 @@ def render_megasample(scene: SceneData, camera, width: int, height: int,
                 state, _ = bounce(state, jnp.asarray(kk))
         else:
             # Remat the bounce body: differentiating the scan would otherwise
-            # stack per-bounce residuals, whose (N, 3) trailing dim pads 42x
-            # on TPU (3 -> 128 lanes) and OOMs at 512^2.  Path replay is
+            # stack per-bounce residuals for every bounce.  Path replay is
             # cheap to recompute (counter RNG re-derives every draw).
             state, _ = jax.lax.scan(jax.checkpoint(bounce), state,
                                     jnp.arange(max_bounces))

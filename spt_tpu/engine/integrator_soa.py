@@ -1,26 +1,25 @@
-"""SoA differentiable integrator — the fast fwd+bwd path.
+"""SoA differentiable integrator — the plain-XLA render and fwd+bwd path.
 
 Same estimator, RNG streams, and semantics as
-``integrator_jax.render_megasample``, but laid out the way the TPU wants:
+``integrator_jax.render_megasample`` (the AoS oracle), laid out as
+component arrays:
 
 * every per-ray quantity is a separate ``(N,)`` f32 component array — no
-  trailing ``(..., 3)`` axis.  On TPU, materialized ``(N, 3)`` arrays pad
-  the last dim to 128 lanes (42× memory), which makes scan carries and AD
-  residuals of the AoS integrator explode at 512²; component arrays tile
-  perfectly.
+  trailing ``(..., 3)`` axis, so scan carries and AD residuals stay one
+  flat array per component.
 
-* primitives are visited in a *static unroll* with scalar attribute reads
-  (``scene.centers[j, 0]`` — traced scalars, so geometry gradients still
-  flow) and vector selects — zero dynamic gathers, the same pattern as the
-  Pallas megakernel.  This caps the integrator at Cornell-class scenes
-  (capacity ≤ 128); larger scenes use the AoS+BVH integrator.
+* small scenes (capacity ≤ ``SOA_MAX_PRIMS``) visit primitives in a
+  *static unroll* with scalar attribute reads (traced scalars, so geometry
+  gradients still flow) and vector selects; larger scenes use the skip-link
+  BVH with per-lane gathers (``core/bvh.py``).
 
 * material *types* are static python ints (``static_mtypes``) so the lobe
   dispatch is boolean algebra resolved at trace time.
 
-``jax.grad`` through this function is the production path-replay backward:
-the remat'd scan re-derives every RNG draw, and residual/carry memory stays
-O(N) per component.
+On a GPU this is the engine for every scene the Triton megakernel does
+not take (engine/pallas_backend.py), and ``jax.grad`` through it is the
+production path-replay backward: the remat'd scan re-derives every RNG
+draw, and residual/carry memory stays O(N) per component.
 """
 
 from __future__ import annotations
@@ -44,7 +43,7 @@ TMIN = 1e-3
 EPS = 1e-4
 BIG = 1e30
 
-SOA_MAX_PRIMS = 128  # static-unroll budget; beyond this use the AoS+BVH path
+SOA_MAX_PRIMS = 128  # static-unroll budget; beyond this the BVH mode
 
 
 def static_mtypes(scene: SceneData) -> tuple:
@@ -142,17 +141,21 @@ def render_megasample_soa(scene: SceneData, camera, width: int, height: int,
                                scene.prim_valid)
     n_light_slots = scene.light_idx.shape[0]
 
-    # Per-sphere scalar attribute getters (traced; gradients flow).
+    # Per-sphere scalar attribute getters (traced; gradients flow).  The
+    # material tables are gathered per sphere once, so each sphere's
+    # scalars are static-index reads and the backward pass needs one
+    # scatter-add per table instead of one dynamic update per sphere.
     alb = scene.materials.albedo
     emi = scene.materials.emission
     rough_t = scene.materials.roughness
     ior_t = scene.materials.ior
+    alb_p, emi_p = alb[scene.mat_id], emi[scene.mat_id]
+    rough_p, ior_p = rough_t[scene.mat_id], ior_t[scene.mat_id]
 
     def sphere_attrs(j):
-        m = scene.mat_id[j]
         return (scene.centers[j, 0], scene.centers[j, 1], scene.centers[j, 2],
-                scene.radii[j], alb[m, 0], alb[m, 1], alb[m, 2],
-                emi[m, 0], emi[m, 1], emi[m, 2], rough_t[m], ior_t[m])
+                scene.radii[j], alb_p[j, 0], alb_p[j, 1], alb_p[j, 2],
+                emi_p[j, 0], emi_p[j, 1], emi_p[j, 2], rough_p[j], ior_p[j])
 
     def sky(dx, dy, dz):
         if scene.sky_mode == SKY_GRADIENT:
@@ -170,6 +173,11 @@ def render_megasample_soa(scene: SceneData, camera, width: int, height: int,
             return sample_env_map_soa(scene.env_map, dx, dy, dz)
         z = jnp.zeros_like(dx)
         return z, z, z
+
+    # Light-slot attribute tables (one gather each; see sphere_attrs).
+    light_c = scene.centers[scene.light_idx]
+    light_r = scene.radii[scene.light_idx]
+    light_e = emi[scene.mat_id[scene.light_idx]]
 
     # Primitive component arrays for the gather-based large-scene path.
     cx_a = scene.centers[:, 0]
@@ -478,16 +486,14 @@ def render_megasample_soa(scene: SceneData, camera, width: int, height: int,
                     lcx, lcy, lcz, lrr = zero, zero, zero, zero
                     ler, leg, leb = zero, zero, zero
                     for l in range(min(n_light_slots, nl)):
-                        lp = scene.light_idx[l]
                         sel = li == l
-                        lm = scene.mat_id[lp]
-                        lcx = jnp.where(sel, scene.centers[lp, 0], lcx)
-                        lcy = jnp.where(sel, scene.centers[lp, 1], lcy)
-                        lcz = jnp.where(sel, scene.centers[lp, 2], lcz)
-                        lrr = jnp.where(sel, scene.radii[lp], lrr)
-                        ler = jnp.where(sel, emi[lm, 0], ler)
-                        leg = jnp.where(sel, emi[lm, 1], leg)
-                        leb = jnp.where(sel, emi[lm, 2], leb)
+                        lcx = jnp.where(sel, light_c[l, 0], lcx)
+                        lcy = jnp.where(sel, light_c[l, 1], lcy)
+                        lcz = jnp.where(sel, light_c[l, 2], lcz)
+                        lrr = jnp.where(sel, light_r[l], lrr)
+                        ler = jnp.where(sel, light_e[l, 0], ler)
+                        leg = jnp.where(sel, light_e[l, 1], leg)
+                        leb = jnp.where(sel, light_e[l, 2], leb)
                 pox = hx + EPS * nsx
                 poy = hy + EPS * nsy
                 poz = hz + EPS * nsz

@@ -1,22 +1,15 @@
-"""Pallas megakernel backend — registers as backend "pallas".
+"""Fast forward backend — registers as backend "pallas".
 
-The fast single-chip path.  Shares the progressive session/invalidation
-logic of PathTracerBase; only the jitted sample function differs.  On
-non-TPU platforms the kernel runs in Pallas interpret mode so the backend
-is testable anywhere; on TPU it compiles via Mosaic.
+Shares the progressive session/invalidation logic of PathTracerBase; only
+the sample function differs.  Routing, from what the backend can observe:
 
-Routing: Cornell-class scenes (≤ ~128 spheres) use the uniforms-in-SMEM
-full-depth megakernel; mid-size scenes the packet-BVH megakernel (its
-VMEM-resident state and walk win while packets stay coherent and the tree
-is shallow); large scenes (> WAVEFRONT_MIN_PRIMS) the sorted-wavefront
-engine — r4 shipped the 5x-faster walk-free wavefront but left the facade
-routing large scenes to the walk megakernel (15.64 s vs 3.16 s on config
-5; VERDICT r4 weak #1), so `create_path_tracer("pallas")` never reached
-the repo's best engine.  The crossover is measured on-chip by
-tools/measure_backend_crossover.py (artifact CROSSOVER_ENGINE.json).
-Env-map scenes always use the wavefront (env lookups at bounce
-boundaries).  Only "reference" integrator mode uses the pure-JAX path
-(bit-exact reference semantics are its contract, not speed).
+* on a GPU, scenes of at most ``megakernel.MAX_PRIMS`` spheres without an
+  environment map go to the Triton megakernel (``kernels/megakernel.py``);
+* every other scene, and every scene on another platform, goes to the
+  plain-XLA SoA integrator (``integrator_soa.render_megasample_soa``),
+  which covers the BVH, environment maps and depth of field;
+* "reference" integrator mode uses the pure-JAX reference path (bit-exact
+  reference semantics are its contract, not speed).
 
 Reference analog: PathTracer.cpp:9-22 — the factory exists so callers get
 the best backend without knowing kernel names.
@@ -25,41 +18,18 @@ the best backend without knowing kernel names.
 from __future__ import annotations
 
 import jax
+import jax.numpy as jnp
 
-from ..core.scene import SKY_ENVMAP
+from ..core.scene import SKY_ENVMAP, SceneData
 from ..kernels import megakernel
-from .api import JaxPathTracer, register_backend
-
-# Above this capacity the SMEM uniform blob gets too large; delegate to the
-# pure-JAX backend's BVH path.
-MAX_PALLAS_PRIMS = 128
-
-# Above this capacity the sorted wavefront beats the walk megakernel and
-# the facade routes to it (VERDICT r4 weak #1 / next #3).  Measured
-# on-chip (tools/measure_backend_crossover.py, CROSSOVER_ENGINE.json):
-# the walk's VMEM-resident state wins while the tree is shallow; the
-# wavefront's sort+precull overhead amortizes once leaf sweeps dominate.
-WAVEFRONT_MIN_PRIMS = 2048
-
-# Leaf-block width: the in-kernel WALK (megakernel_bvh) is sync-bound per
-# node on hardware and wants fat leaves (r3 sweep: block 32/64/128/256 =
-# 9.41/7.89/7.08/6.69 s), while the r4 split WAVEFRONT has no walk and its
-# candidate sweeps want finer culling (r4 sweep: b128+qbits5 3.17 s vs
-# b256 3.29 s).  Interpret-mode tests want short unrolls either way.
-TPU_LEAF_BLOCK = 256
-TPU_WAVEFRONT_BLOCK = 128
-TPU_WAVEFRONT_QBITS = 5
+from . import integrator_soa
+from .api import JaxPathTracer, camera_has_dof, register_backend
 
 
-def _leaf_block(capacity: int, on_tpu: bool, wavefront: bool = False) -> int:
-    from ..kernels.megakernel_bvh import BLOCK
-    if on_tpu and capacity > 2048:
-        return TPU_WAVEFRONT_BLOCK if wavefront else TPU_LEAF_BLOCK
-    return BLOCK
-
-
-def _on_tpu() -> bool:
-    return jax.default_backend() == "tpu"
+def uses_megakernel(scene: SceneData, platform: str) -> bool:
+    """True where the Triton megakernel renders ``scene`` on ``platform``."""
+    return (platform == "gpu" and scene.capacity <= megakernel.MAX_PRIMS
+            and scene.sky_mode != SKY_ENVMAP)
 
 
 class PallasPathTracer(JaxPathTracer):
@@ -70,40 +40,27 @@ class PallasPathTracer(JaxPathTracer):
         if s.integrator == "reference":
             return super()._render_samples(start_sample, spp)
         camera = self._camera or self._default_camera()
-        if (self._scene_data.sky_mode == SKY_ENVMAP
-                or self._scene_data.capacity > WAVEFRONT_MIN_PRIMS):
-            # Env-map lighting: the sorted-wavefront engine keeps ray state
-            # in HBM between bounce kernels, so miss lanes get their bilinear
-            # env lookup in XLA at the bounce boundary — no per-lane texture
-            # gathers inside Mosaic.  Large scenes: the walk-free wavefront
-            # is the measured-fastest engine (5x the walk megakernel at 10k
-            # prims — BENCH_SUITE config 5), so the facade routes there.
-            from ..kernels import wavefront
-            return wavefront.render_wavefront(
-                self._scene_data, camera, s.width, s.height, start_sample,
-                spp, max_bounces=s.max_bounces,
-                rr_depth=s.russian_roulette_depth, use_nee=s.use_nee,
-                use_mis=s.use_mis, seed=s.seed,
-                block=_leaf_block(self._scene_data.capacity, _on_tpu(),
-                                  wavefront=True),
-                qbits=(TPU_WAVEFRONT_QBITS if _on_tpu()
-                       else wavefront.Q_BITS),
-                interpret=not _on_tpu())
-        if self._scene_data.capacity > MAX_PALLAS_PRIMS:
-            # Large scenes: the BVH traversal megakernel.
-            from ..kernels import megakernel_bvh
-            return megakernel_bvh.render_tiles_bvh(
-                self._scene_data, camera, s.width, s.height, start_sample,
-                spp, max_bounces=s.max_bounces,
-                rr_depth=s.russian_roulette_depth, use_nee=s.use_nee,
-                use_mis=s.use_mis, seed=s.seed,
-                block=_leaf_block(self._scene_data.capacity, _on_tpu()),
-                interpret=not _on_tpu())
-        return megakernel.render_tiles(
-            self._scene_data, camera, s.width, s.height, start_sample, spp,
-            max_bounces=s.max_bounces, rr_depth=s.russian_roulette_depth,
-            use_nee=s.use_nee, use_mis=s.use_mis, seed=s.seed,
-            interpret=not _on_tpu())
+        kw = dict(max_bounces=s.max_bounces,
+                  rr_depth=s.russian_roulette_depth, use_nee=s.use_nee,
+                  use_mis=s.use_mis, seed=s.seed, dof=camera_has_dof(camera))
+        sd = self._scene_data
+        if uses_megakernel(sd, jax.default_backend()):
+            return megakernel.render_tiles(
+                sd, camera, s.width, s.height, start_sample, spp, **kw)
+        small = sd.capacity <= integrator_soa.SOA_MAX_PRIMS
+        if not small and sd.bvh is None:
+            # Mid-size scene compiled without a BVH: the SoA integrator
+            # needs one, the AoS integrator brute-forces.
+            return super()._render_samples(start_sample, spp)
+        mtypes = integrator_soa.static_mtypes(sd) if small else None
+        key = ("soa", s.static_key(), s.seed, bool(s.progressive), kw["dof"],
+               mtypes)
+        fn = self._fn_cache.get(key)
+        if fn is None:
+            fn = jax.jit(lambda sc, cam, ids: integrator_soa.render_megasample_soa(
+                sc, cam, s.width, s.height, ids, mtypes=mtypes, **kw))
+            self._fn_cache[key] = fn
+        return fn(sd, camera, jnp.arange(start_sample, start_sample + spp))
 
 
 register_backend("pallas", PallasPathTracer)

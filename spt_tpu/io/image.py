@@ -1,8 +1,8 @@
-"""Image output — the display bridge, TPU-style.
+"""Image output — the display bridge.
 
 The reference streams its framebuffer into an SDL texture each UI frame
 (src/renderer/Texture2D.cpp:61-68, src/App.cpp:236-239); the headless
-TPU-native equivalent is a host-side gather + file write.  PNG via Pillow
+equivalent is a host-side gather + file write.  PNG via Pillow
 with a dependency-free pure-Python fallback (zlib), float EXR-ish dumps via
 ``.npy``, and PPM for zero-dependency debugging.
 """

@@ -4,7 +4,7 @@ The reference resolves its accumulation buffer to packed RGBA on the CPU
 each frame (CPUPathTracer.cpp:87-117) and uploads it to an SDL texture
 (Texture2D.cpp:61-68); here the same hot host-side loops — resolve /
 tonemap / quantize / pack, plus PNG encoding — run in C++ when
-``native/libdisplay.so`` is built (``make -C native``), with the numpy /
+the library builds (``spt_tpu.utils.native``), with the numpy /
 pure-Python paths in :mod:`spt_tpu.core.color` and :mod:`spt_tpu.io.image`
 as fallbacks.  Semantics are identical (tests/test_native_display.py).
 """
@@ -12,29 +12,19 @@ as fallbacks.  Semantics are identical (tests/test_native_display.py).
 from __future__ import annotations
 
 import ctypes
-import os
 from typing import Optional, Tuple
 
 import numpy as np
 
-_SO_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        "..", "..", "native", "libdisplay.so")
+from ..utils import native
 
 _TONEMAP_CODES = {"none": 0, "reinhard": 1, "aces": 2}
 
-_lib = None
-_tried = False
-
 
 def _load_native():
-    global _lib, _tried
-    if _tried:
-        return _lib
-    _tried = True
-    path = os.path.normpath(_SO_PATH)
-    if not os.path.exists(path):
+    lib = native.load("display")
+    if lib is None:
         return None
-    lib = ctypes.CDLL(path)
     fp = ctypes.POINTER(ctypes.c_float)
     u32p = ctypes.POINTER(ctypes.c_uint32)
     u8p = ctypes.POINTER(ctypes.c_uint8)
@@ -47,8 +37,7 @@ def _load_native():
     lib.spt_encode_png.restype = ctypes.c_long
     lib.spt_encode_png.argtypes = [u8p, ctypes.c_int, ctypes.c_int,
                                    ctypes.c_int, u8p, ctypes.c_long]
-    _lib = lib
-    return _lib
+    return lib
 
 
 def available() -> bool:

@@ -1,30 +1,27 @@
-"""Shared per-bounce transport physics for the Pallas kernels.
+"""Per-bounce transport physics shared by the megakernel and its tests.
 
-One pure-jnp function, ``trace_bounce``, implements a single wavefront
-bounce on (8, 128) component arrays: intersection (static sphere unroll over
-scalar uniforms), emission with MIS weighting, NEE with sphere-cone light
-sampling, branchless Lambert/GGX/dielectric sampling, Russian roulette.
+One pure-jnp function, ``trace_bounce``, implements a single bounce on
+component arrays: intersection (static sphere unroll over scalar uniforms,
+or a caller-supplied intersector), emission with MIS weighting, NEE with
+sphere-cone light sampling, branchless Lambert/GGX/dielectric sampling,
+Russian roulette.
 
-Both kernels consume it:
-  * the forward megakernel calls it per bounce;
-  * the fused fwd+bwd kernel re-runs it under ``jax.vjp`` during the
-    backward sweep (path replay with hand-scheduled VMEM residuals), so
-    gradients are *exactly* the adjoint of the forward math — no separately
-    maintained backward to drift.
+``kernels/megakernel.py`` calls it once per bounce inside the Triton
+kernel, with its own intersection loop; tests/test_pallas_grad.py drives it
+as a plain-jnp bounce chain and checks its forward and ``jax.grad`` against
+the SoA integrator.
 
-Inputs are organized so differentiation works cleanly inside a Pallas
-kernel trace:
+Inputs:
   * ``theta`` — nested tuples of *scalar* jnp values (per-sphere geometry +
-    material, sky colors, per-light-slot attributes).  Callers read them
-    from SMEM refs BEFORE calling (Ref loads aren't differentiable).
+    material, sky colors, per-light-slot attributes).
   * ``state`` — tuple of 13 f32 arrays (o, d, throughput, radiance,
     prev_pdf): the differentiable carry.
   * ``aux`` — bool arrays (active, prev_specular) + RNG uniforms: non-
-    differentiable, passed alongside so ``jax.vjp`` sees only f32 inputs.
+    differentiable, passed alongside.
 
 The math matches integrator_soa.render_megasample_soa term for term
-(identical RNG stream consumption), which is the oracle its gradients are
-tested against.
+(identical RNG stream consumption), which is the oracle it is tested
+against.
 """
 
 from __future__ import annotations
@@ -43,24 +40,21 @@ TMIN = 1e-3
 EPS = 1e-4
 BIG = 1e30
 
-# Canonical RNG stream layout shared by every integrator (the megakernels,
-# the wavefront, integrator_jax, integrator_soa): dim = bounce * N_DIMS + D.
+# Canonical RNG stream layout shared by every integrator (the megakernel,
+# integrator_jax, integrator_soa): dim = bounce * N_DIMS + D.
 N_DIMS = 8
 DIM_RR, DIM_U1, DIM_U2, DIM_LSEL, DIM_LU1, DIM_LU2, DIM_LOBE = range(7)
 
-# NEE light selection is keyed on the HIT-POINT CELL, not the pixel
-# (r4): quantize the shading point into a LSEL_CELLS^3 grid over the
-# scene's primitive bounds and draw the light index from
-# counter_uniform(cell, sample, bounce*N_DIMS+DIM_LSEL, seed).  Still a
-# pure deterministic function (replay-safe, sharding-safe, identical in
-# every backend) and still uniform over lights per (pixel, sample), so
-# the estimator stays unbiased — but all rays shading inside one cell at
-# one (sample, bounce) now target the SAME light.  That coherence is what
-# makes wavefront NEE tractable on TPU: a sorted ray tile's shadow rays
-# become one narrow cone, so the occlusion walk's scalar frustum filter
-# rejects nodes without any vector work (profiled r4: the per-lane-light
-# occlusion walk was 60-87%% of every bounce kernel's wall).  The cost is
-# cell-sized spatial correlation of direct-light noise at low spp.
+# NEE light selection is keyed on the SHADING-POINT CELL, not the pixel:
+# quantize the shading point into a LSEL_CELLS^3 grid over the scene's
+# primitive bounds and draw the light index from
+# counter_uniform(cell, sample, bounce*N_DIMS+DIM_LSEL, seed).  A pure
+# deterministic function (replay-safe, sharding-safe, identical in every
+# integrator) and still uniform over lights per (pixel, sample), so the
+# estimator stays unbiased; all rays shading inside one cell at one
+# (sample, bounce) target the same light.  The cost is cell-sized spatial
+# correlation of direct-light noise at low spp.  Every integrator must key
+# the pick the same way, or their images stop agreeing.
 LSEL_CELLS = 16
 
 
@@ -84,24 +78,6 @@ def lsel_bounds(centers, radii, valid):
     return jnp.concatenate([lo, ext])
 
 
-def lsel_bounds_from_prims(prims):
-    """``lsel_bounds`` computed from a packed leaf-block prim table
-    ((n_blocks, 5, block): cx cy cz r mid, mid < 0 marks padding).  The
-    table holds exactly the scene's valid prims' f32 values, and min/max
-    are order-free, so this is bit-identical to the scene-array form."""
-    prims = jnp.asarray(prims, jnp.float32)
-    ok = (prims[:, 4, :] >= 0.0) & (prims[:, 3, :] > 0.0)
-    big = jnp.float32(3e38)
-    c = prims[:, 0:3, :]
-    r = prims[:, 3:4, :]
-    lo = jnp.min(jnp.where(ok[:, None, :], c - r, big), axis=(0, 2))
-    hi = jnp.max(jnp.where(ok[:, None, :], c + r, -big), axis=(0, 2))
-    any_ok = jnp.any(ok)
-    lo = jnp.where(any_ok, lo, 0.0)
-    ext = jnp.where(any_ok, jnp.maximum(hi - lo, 1e-5), 1.0)
-    return jnp.concatenate([lo, ext])
-
-
 def lsel_cell(hx, hy, hz, lo3, ext3):
     """Quantized shading-point cell id (u32) — the light pick's stream key."""
     n = jnp.float32(LSEL_CELLS)
@@ -116,39 +92,28 @@ def lsel_uniform(kx, ky, kz, u, k):
     """The cell-keyed light-selection uniform (see LSEL_CELLS).
 
     Key point convention (identical in every backend): the HIT point at
-    bounce 0 (camera tiles are hit-coherent; origin-keying would give the
-    whole image one light per sample), the RAY ORIGIN at bounces >= 1 —
-    which is the previous hit point, and exactly the cell the wavefront's
-    coherence sort bins by (same 16-cell grid over the same bounds), so a
-    sorted ray tile shares its light pick and its shadow rays form one
-    narrow cullable cone."""
+    bounce 0 (origin-keying would give the whole image one light per
+    sample, since every camera ray starts at the eye), the RAY ORIGIN at
+    bounces >= 1, which is the previous hit point."""
     cell = lsel_cell(kx, ky, kz, u["lsel_lo"], u["lsel_ext"])
     dim = jnp.uint32(jnp.asarray(k, jnp.uint32) * N_DIMS + DIM_LSEL)
     return rng.counter_uniform(cell, u["sample"], dim, u["seed"])
 
-N_SPHERE_ATTRS = 12   # cx cy cz r  ar ag ab  er eg eb  rough ior
-N_LIGHT_ATTRS = 7     # cx cy cz r  er eg eb
 N_SKY_ATTRS = 6       # horizon rgb, zenith rgb
-# Mapping of light-attr index -> sphere-attr index (for folding light
-# cotangents back into the owning sphere's gradient row).
+# Sphere-attribute slots (cx cy cz r ar ag ab er eg eb rough ior) that make
+# up a light's 7 attributes (cx cy cz r er eg eb).
 LIGHT_TO_SPHERE_ATTR = (0, 1, 2, 3, 7, 8, 9)
 
 
 class BounceCfg(NamedTuple):
-    """Static per-bounce configuration."""
+    """Per-bounce configuration; every field but ``k`` is static."""
     mtypes: tuple        # per-sphere material type ints
-    k: int               # bounce index
+    k: int               # bounce index (a Python int or a traced scalar)
     rr_depth: int
     use_nee: bool
     use_mis: bool
     sky_mode: int
     n_light_slots: int
-    # When set, trace_bounce returns a 3-tuple aux (active, prev_spec,
-    # missed-this-bounce).  The wavefront renderer uses the miss mask to add
-    # environment-map radiance in XLA between bounce kernels (texture
-    # gathers stay out of Mosaic); sky_radiance returns zero for SKY_ENVMAP
-    # so nothing is double-counted.
-    want_miss: bool = False
 
 
 def _dot(ax, ay, az, bx, by, bz):
@@ -271,20 +236,18 @@ def nee_shadow_setup(ox, oy, oz, hx, hy, hz, nsx, nsy, nsz, u, lights, nl,
                      nlf, k):
     """Light pick + sphere-cone sample + shadow-ray construction.
 
-    Shared VERBATIM between ``trace_bounce`` and the split-bounce
-    wavefront's XLA glue (wavefront._shadow_rays_xla): the glue preculls
-    exactly the ray the shade kernel will re-derive, so both must run the
-    same float ops on the same inputs.  ``lights`` is a tuple of 7-scalar
-    tuples — in-kernel SMEM scalars and XLA 0-d arrays both fit.
+    ``lights`` is a tuple of 7-scalar tuples (kernel scalar loads and XLA
+    0-d arrays both fit).
 
     Returns (pox, poy, poz, ldx, ldy, ldz, t_l, pdf_l, inside_l,
     ler, leg, leb).
     """
     if "lsel_lo" in u:
-        if k == 0:
-            ul = lsel_uniform(hx, hy, hz, u, k)
-        else:   # (ox, oy, oz) hold the bounce's INPUT ray origins
-            ul = lsel_uniform(ox, oy, oz, u, k)
+        # Key point: the hit at bounce 0, the bounce's input ray origin
+        # after (``k`` may be traced).
+        k0 = k == 0
+        ul = lsel_uniform(jnp.where(k0, hx, ox), jnp.where(k0, hy, oy),
+                          jnp.where(k0, hz, oz), u, k)
     else:
         ul = u["lsel"]   # legacy per-pixel stream (small fallbacks)
     lu1, lu2 = u["lu1"], u["lu2"]
@@ -336,7 +299,7 @@ def nee_shadow_setup(ox, oy, oz, hx, hy, hz, nsx, nsy, nsz, u, lights, nl,
 
 def trace_bounce(theta, state, aux, u, nl, cfg: BounceCfg,
                  intersect_fn=None, occluded_fn=None):
-    """One wavefront bounce.
+    """One bounce of a batch of paths.
 
     theta = (spheres: tuple[P] of 12-scalar tuples,
              sky: 6-scalar tuple,
@@ -347,11 +310,10 @@ def trace_bounce(theta, state, aux, u, nl, cfg: BounceCfg,
     u     = dict rr,u1,u2,lobe[,lsel,lu1,lu2]       -- non-diff uniforms
     nl    = dynamic scalar int: live light count
     intersect_fn(ox,oy,oz,dx,dy,dz, active) -> (t, h, m_lam, m_met, m_die):
-        optional replacement for the static sphere unroll (the BVH kernel
-        plugs its packet traversal in here); default uses ``theta[0]``.
+        optional replacement for the static sphere unroll (the megakernel
+        plugs its sphere loop in here); default uses ``theta[0]``.
     occluded_fn(ox,oy,oz,dx,dy,dz, tmax, need) -> blocked: likewise for the
-        NEE shadow test (``need`` marks lanes whose result matters, so an
-        any-hit walk can early-out).
+        NEE shadow test (``need`` marks lanes whose result matters).
     Returns (new_state, new_aux).
     """
     spheres, sky, lights = theta
@@ -553,19 +515,17 @@ def trace_bounce(theta, state, aux, u, nl, cfg: BounceCfg,
     th_g_n = th_g * w_g
     th_b_n = th_b * w_b2
     active_n = hit & ~dead
-    if k >= cfg.rr_depth:
-        u_rr = u["rr"]
-        p_cont = jnp.clip(jnp.maximum(th_r_n, jnp.maximum(th_g_n, th_b_n)),
-                          0.05, 0.95)
-        # RR decisions are discrete: detach the continuation probability so
-        # the replayed backward matches the jax.grad estimator exactly.
-        p_cont_d = jax.lax.stop_gradient(p_cont)
-        kill = u_rr > p_cont_d
-        active_n = active_n & ~kill
-        inv_p = 1.0 / p_cont
-        th_r_n = th_r_n * inv_p
-        th_g_n = th_g_n * inv_p
-        th_b_n = th_b_n * inv_p
+    rr_on = k >= cfg.rr_depth
+    p_cont = jnp.clip(jnp.maximum(th_r_n, jnp.maximum(th_g_n, th_b_n)),
+                      0.05, 0.95)
+    # RR decisions are discrete: detach the continuation probability from
+    # the kill test; the 1/p_cont weight stays differentiable.
+    kill = rr_on & (u["rr"] > jax.lax.stop_gradient(p_cont))
+    active_n = active_n & ~kill
+    inv_p = jnp.where(rr_on, 1.0 / p_cont, 1.0)
+    th_r_n = th_r_n * inv_p
+    th_g_n = th_g_n * inv_p
+    th_b_n = th_b_n * inv_p
 
     ox = jnp.where(active_n, hx + EPS * off_sign * nsx, ox)
     oy = jnp.where(active_n, hy + EPS * off_sign * nsy, oy)
@@ -581,7 +541,5 @@ def trace_bounce(theta, state, aux, u, nl, cfg: BounceCfg,
 
     new_state = (ox, oy, oz, dx, dy, dz, th_r, th_g, th_b,
                  rad_r, rad_g, rad_b, prev_pdf)
-    if cfg.want_miss:
-        return new_state, (active_n, prev_spec, miss)
     new_aux = (active_n, prev_spec)
     return new_state, new_aux

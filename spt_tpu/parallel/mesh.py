@@ -1,14 +1,16 @@
-"""Device mesh construction for multi-chip / multi-host rendering.
+"""Device mesh construction for multi-GPU rendering.
 
 The reference is single-process with no distribution anywhere (SURVEY.md
-§2.4); this module is its TPU-native replacement: ``jax.sharding.Mesh``
-over the pod slice, with the convention that the ``data`` axis shards rays/
-pixels/samples (DP) and the optional ``prim`` axis shards scene primitives
-(the TP analog, for scenes larger than one chip's HBM — BASELINE config 5).
+§2.4); this module is its replacement: a ``jax.sharding.Mesh`` over the
+GPUs, with the convention that the ``data`` axis shards rays/pixels/samples
+(DP) and the optional ``prim`` axis shards scene primitives (the TP analog,
+for scenes larger than one card's memory — BASELINE config 5).  On one host
+the cards are joined all to all by NVLink, so any axis order reaches every
+peer at the same rate; collectives under ``shard_map`` go to NCCL.
 
-Multi-host bring-up uses ``jax.distributed.initialize()`` (call
-``init_distributed`` once per process before building meshes); on a single
-host the same code runs over local devices, and tests fake 8 devices with
+Multi-process bring-up uses ``jax.distributed.initialize()`` (call
+``init_distributed`` once per process before building meshes); one process
+can also drive every card of a host, and tests fake 8 devices with
 ``--xla_force_host_platform_device_count=8``.
 """
 
@@ -24,11 +26,11 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 def init_distributed(coordinator_address: Optional[str] = None,
                      num_processes: Optional[int] = None,
                      process_id: Optional[int] = None) -> None:
-    """Multi-host bring-up (SNIPPETS.md pattern): call once per process
+    """Multi-process bring-up (SNIPPETS.md pattern): call once per process
     before any device op.  With no arguments, defers to JAX's environment
-    auto-detection (``jax.distributed.initialize()`` reads the cluster env
-    — on Cloud TPU pods this needs no explicit coordinator); with an
-    explicit coordinator it wires the process group directly.  No-op when
+    auto-detection (``jax.distributed.initialize()`` reads a cluster
+    environment where one exists; elsewhere pass the coordinator
+    ``host:port``, the process count and this process's id).  No-op when
     already initialized."""
     try:
         if coordinator_address is None:
@@ -46,13 +48,14 @@ def make_render_mesh(data: Optional[int] = None, prim: int = 1,
                      devices: Optional[Sequence] = None) -> Mesh:
     """Mesh with a ``data`` (rays/samples) axis and a ``prim`` axis.
 
-    Defaults to all devices on ``data``.  ``hosts`` declares the multi-host
+    Defaults to all devices on ``data``.  ``hosts`` declares a multi-host
     shape: devices are laid out host-major and each ``prim`` group is kept
-    *within* one host's chips, so the prim-axis collectives of config 5
-    (the scene all_gather / ppermute ring) ride ICI; only the ``data``-axis
-    collectives — the one psum of sample-sharded partial images and the DP
-    gradient all-reduce, both once per step — cross the DCN between hosts.
-    Requires prim to divide the per-host chip count.
+    *within* one host's cards, so the prim-axis collectives of config 5
+    (the scene all_gather / ppermute ring) stay on that host's NVLink; only
+    the ``data``-axis collectives — the one psum of sample-sharded partial
+    images and the DP gradient all-reduce, both once per step — cross the
+    network between hosts.  Requires prim to divide the per-host card
+    count.
     """
     devices = list(devices if devices is not None else jax.devices())
     n = len(devices)
@@ -66,16 +69,16 @@ def make_render_mesh(data: Optional[int] = None, prim: int = 1,
         if (data * prim) % hosts != 0:
             raise ValueError(f"{data * prim} devices not divisible by "
                              f"hosts={hosts}")
-        chips = data * prim // hosts
-        if chips % prim != 0:
+        per_host = data * prim // hosts
+        if per_host % prim != 0:
             raise ValueError(
-                f"prim={prim} does not divide the {chips} chips/host — a "
-                f"prim group would straddle hosts and its collectives "
-                f"would cross DCN")
-        # Host-major order; contiguous chips within a host form each prim
-        # group: reshape (hosts, chips) -> (hosts * chips/prim, prim).
+                f"prim={prim} does not divide the {per_host} devices/host — "
+                f"a prim group would straddle hosts and its collectives "
+                f"would leave the host")
+        # Host-major order; contiguous devices within a host form each prim
+        # group: reshape (hosts, per_host) -> (hosts * per_host/prim, prim).
         dev_array = np.asarray(devices[:data * prim]).reshape(
-            hosts, chips // prim, prim).reshape(data, prim)
+            hosts, per_host // prim, prim).reshape(data, prim)
     else:
         dev_array = np.asarray(devices[:data * prim]).reshape(data, prim)
     return Mesh(dev_array, ("data", "prim"))

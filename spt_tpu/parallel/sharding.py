@@ -18,7 +18,7 @@ Three first-class parallelism strategies (SURVEY.md §2.4's mandate), all as
   resolved across devices with a min/argmin reduction and the winning
   primitive's attributes are broadcast with a one-hot ``psum``.  This is the
   ring-attention-shaped pattern of rendering: rays stay put, scene chunks
-  are logically "visited" via collectives on ICI.
+  are logically "visited" via collectives over NVLink.
 
 * **Data-parallel gradient step** (`make_dp_grad_step`) — inverse rendering
   with sample-sharded gradient estimation and ``psum`` all-reduce of scene-
@@ -104,11 +104,10 @@ def shard_scene_prims(scene: SceneData, n_shards: int) -> SceneData:
 
 
 # Transient-copy budget for the auto dispatcher: below this the gathered
-# scene table + BVH fit comfortably on-chip and the gather strategy's
-# single all_gather per chunk wins (measured crossover: see
-# tools/crossover_prim_sharding.py + BENCH_SUITE prim-sharding row);
-# above it the ring streams O(scene/N) per hop and never materializes a
-# full copy.
+# scene table + BVH fit comfortably in device memory and the gather
+# strategy's single all_gather per chunk is the simpler schedule; above it
+# the ring streams O(scene/N) per hop and never materializes a full copy.
+# Not measured on a GPU yet.
 GATHER_TRANSIENT_BUDGET = 64 << 20
 
 # Below this many gathered rows, the gather strategy intersects with the
@@ -134,10 +133,7 @@ def render_prim_sharded(scene: SceneData, camera, width: int, height: int,
     ``strategy``: "gather" (ZeRO-style transient full copy per chunk),
     "ring" (ppermute chunk rotation, never a full copy), or "auto" —
     gather while one transient copy fits ``transient_budget`` bytes, ring
-    beyond.  The legacy one-hot-psum variant (2 pmins + attribute psums
-    per bounce) measured 0.286 proxy efficiency vs gather's 0.769 and the
-    ring's streaming memory story (BENCH_SUITE r2 config 6) and was
-    removed (VERDICT r2 weak #3).
+    beyond.
     """
     if strategy == "auto":
         n_prim = mesh.shape["prim"]
@@ -227,7 +223,7 @@ def render_prim_sharded_gather(scene: SceneData, camera, width: int,
 
     One collective per bounce (vs the ring's 2(N-1) ppermutes), at N x the
     comm volume — the right trade whenever one transient scene copy fits
-    on-chip.  ``render_prim_sharded_ring`` is the streaming fallback for
+    in device memory.  ``render_prim_sharded_ring`` is the streaming fallback for
     scenes where even one copy doesn't fit.
 
     The acceleration structure is sharded-and-gathered alongside the
@@ -387,7 +383,7 @@ def render_prim_sharded_ring(scene: SceneData, camera, width: int,
     hops every ray has seen every primitive and holds its winner's
     attributes — zero reduction collectives, comm volume O(scene/N) per
     bounce (independent of ray count), and every transfer is a neighbor
-    exchange that rides ICI at link speed.  This is the ring-attention-
+    exchange between NVLink peers.  This is the ring-attention-
     shaped schedule of rendering (SURVEY.md §2.4 SP/CP row).
 
     Occlusion (NEE shadow rays) runs the same ring in any-hit form.  Light

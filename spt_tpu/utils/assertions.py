@@ -5,7 +5,7 @@ Mirrors render_assert.h (/root/reference/libs/render/src/render_assert.h:
 location and raises; ``check`` compiles out when SPT_RELEASE is set
 (the RENDER_RELEASE analog).  For traced device code, ``checked_fn`` wraps a
 function with jax.experimental.checkify so NaN/OOB/div-by-zero surface as
-errors instead of silent garbage — the TPU-native race/corruption detector
+errors instead of silent garbage — the device-side race/corruption detector
 (SURVEY.md §5).
 """
 

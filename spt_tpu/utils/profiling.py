@@ -3,7 +3,7 @@
 The reference's only observability is an ImGui FPS readout (App.cpp:292)
 and an aspirational RAII ProfilerBlock design
 (architecture-redesign-gameplan.md:1144-1178, MetricsCollector :1424-1468).
-TPU-native equivalents: ``jax.profiler`` trace capture for XProf/Perfetto,
+Equivalents here: ``jax.profiler`` trace capture for XProf/Perfetto,
 named trace annotations around wavefront stages, and a RenderStats
 aggregator (rays/s, paths/s, sliding-window frame times).
 """
@@ -108,7 +108,7 @@ def measure_occupancy(scene_data, camera, width: int, height: int, *,
     """Per-bounce active-lane fraction of the wavefront (list of floats).
 
     Bounce k's entry records how many lanes still carry a live ray; the
-    tail fractions are exactly the wasted VPU work a compaction pass would
+    tail fractions are exactly the wasted lane work a compaction pass would
     reclaim — the measurement that motivates (or kills) pipeline-
     parallel / compaction designs (SURVEY.md §2.4 PP row).
     """

@@ -198,3 +198,71 @@ def test_aos_bvh_scene_is_differentiable(rng_np):
     assert np.isfinite(np.asarray(g["albedo"])).all()
     assert np.isfinite(np.asarray(g["centers"])).all()
     assert np.abs(np.asarray(g["albedo"])).max() > 0
+
+
+def _lit_bvh_scene(n=140, seed=5):
+    """>128 spheres (gather+BVH SoA mode) with a lamp, Lambert and GGX."""
+    import spt_tpu
+    from spt_tpu import Scene
+
+    rng = np.random.default_rng(seed)
+    sc = Scene()
+    sc.set_sky(spt_tpu.SKY_GRADIENT)
+    m = sc.add_material("lambert", albedo=(0.6, 0.5, 0.45))
+    m2 = sc.add_material("metal", albedo=(0.3, 0.55, 0.7), roughness=0.4)
+    lamp = sc.add_material("lambert", albedo=(0.8,) * 3, emission=(6.0,) * 3)
+    sc.create_sphere("floor", (0, -1000, 5), 999.5, m)
+    sc.create_sphere("lamp", (0, 4.0, 5), 1.0, lamp)
+    for i in range(n):
+        p = (float(rng.uniform(-3, 3)), float(rng.uniform(-0.2, 2.5)),
+             float(5 + rng.uniform(-1.5, 1.5)))
+        sc.create_sphere(f"s{i}", p, 0.3, m if i % 2 else m2)
+    return sc
+
+
+# (field, index, step, rtol, atol): the steps and tolerances of
+# tests/test_gradients.py, except roughness, whose 1e-3 step flips which
+# sphere a reflected ray hits in this denser scene.
+_BVH_FD_CASES = [
+    ("albedo", (0, 0), 1e-2, 1e-2, 1e-5),
+    ("emission", (2, 1), 5e-2, 1e-2, 1e-5),
+    ("roughness", (1,), 1e-4, 5e-2, 1e-5),
+    ("centers", (1, 0), 1e-4, 0.1, 1e-2),
+    ("radii", (1,), 1e-4, 0.1, 1e-2),
+]
+
+
+@pytest.fixture(scope="module")
+def bvh_fd_setup():
+    from spt_tpu import Camera
+    from spt_tpu.diff import gradients as G
+
+    sd = _lit_bvh_scene().compile(use_bvh=True)
+    assert sd.capacity > 128 and sd.bvh is not None
+    cam = Camera.look_at((0, 0.5, -1.5), (0, 0.5, 5.0), fov_degrees=60)
+    render = G.make_render_fn(sd, cam, 12, 9, max_bounces=2, seed=1)
+    params = G.get_params(sd, ("albedo", "emission", "roughness", "centers",
+                               "radii"))
+    ids = jnp.arange(2)
+    grads = jax.jit(jax.grad(lambda p: jnp.sum(render(p, ids))))(params)
+    return jax.jit(render), params, ids, grads
+
+
+@pytest.mark.parametrize("field,index,step,rtol,atol", _BVH_FD_CASES)
+def test_bvh_path_gradient_matches_fd(bvh_fd_setup, field, index, step,
+                                      rtol, atol):
+    """Path-replay gradients through BVH traversal + attribute gathers ==
+    central finite differences (summed in float64 on the host)."""
+    render, params, ids, grads = bvh_fd_setup
+
+    def loss(delta):
+        p = dict(params)
+        arr = np.asarray(p[field]).copy()
+        arr[index] += delta
+        p[field] = jnp.asarray(arr)
+        return float(np.asarray(render(p, ids), np.float64).sum())
+
+    g_fd = (loss(step) - loss(-step)) / (2 * step)
+    g_auto = float(grads[field][index])
+    assert g_auto != 0.0
+    np.testing.assert_allclose(g_auto, g_fd, rtol=rtol, atol=atol)

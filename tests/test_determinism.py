@@ -1,6 +1,6 @@
 """Determinism: same inputs -> identical images, across runs and chunkings.
 
-The TPU-native stand-in for race detection (SURVEY.md §5): any
+The stand-in for race detection (SURVEY.md §5): any
 nondeterminism in kernels or collectives shows up as image differences.
 """
 

@@ -134,50 +134,3 @@ def test_checkpoint_roundtrip():
     np.testing.assert_array_equal(
         np.asarray(tracer.get_render_result().image_f32),
         np.asarray(tracer2.get_render_result().image_f32))
-
-
-def test_pallas_backend_routes_large_scene_to_wavefront(monkeypatch):
-    """`create_path_tracer("pallas")` on a >WAVEFRONT_MIN_PRIMS scene must
-    hit the wavefront engine — r4 routed such scenes to the walk
-    megakernel, 5x slower at 10k prims (VERDICT r4 weak #1 / next #3).
-    Pinned by counting engine entry points, not by timing."""
-    from spt_tpu.engine import pallas_backend as pb
-    from spt_tpu.kernels import megakernel_bvh, wavefront
-
-    calls = {"wavefront": 0, "walk": 0}
-    real_wf = wavefront.render_wavefront
-
-    def spy_wf(*a, **k):
-        calls["wavefront"] += 1
-        return real_wf(*a, **k)
-
-    def spy_walk(*a, **k):
-        calls["walk"] += 1
-        raise AssertionError("walk megakernel must not be used here")
-
-    monkeypatch.setattr(wavefront, "render_wavefront", spy_wf)
-    monkeypatch.setattr(megakernel_bvh, "render_tiles_bvh", spy_walk)
-
-    from bench_suite import scene_10k
-    scene = scene_10k(pb.WAVEFRONT_MIN_PRIMS + 1)
-    tracer = create_path_tracer("pallas")
-    tracer.set_scene(scene)
-    s = RenderSettings()
-    s.set_resolution(16, 16)
-    s.samples_per_pixel = 1
-    s.max_bounces = 2
-    tracer.set_settings(s)
-    tracer.render()
-    assert calls["wavefront"] == 1 and calls["walk"] == 0
-
-    # Mid-size scenes keep the walk megakernel (measured crossover).
-    calls["wavefront"] = 0
-    monkeypatch.setattr(megakernel_bvh, "render_tiles_bvh",
-                        lambda *a, **k: (calls.__setitem__("walk",
-                                         calls["walk"] + 1),
-                                        np.zeros((16, 16, 3)))[1])
-    tracer2 = create_path_tracer("pallas")
-    tracer2.set_scene(scene_10k(256))
-    tracer2.set_settings(s)
-    tracer2.render()
-    assert calls["walk"] == 1 and calls["wavefront"] == 0

@@ -11,22 +11,14 @@ import jax
 import jax.numpy as jnp
 import pytest
 
+import bench_suite
 import spt_tpu
-from spt_tpu import Camera, Scene
+from spt_tpu import Camera
 from spt_tpu.diff import gradients as G
 
 
 def _scene_with_light():
-    scene = Scene()
-    scene.set_sky(spt_tpu.SKY_NONE)
-    white = scene.add_material("lambert", albedo=(0.6, 0.55, 0.5))
-    rough = scene.add_material("metal", albedo=(0.7, 0.7, 0.75), roughness=0.4)
-    lamp = scene.add_material("lambert", albedo=(0.8,) * 3, emission=(9.0,) * 3)
-    scene.create_sphere("floor", (0, -1000, 4), 1000.0, white)
-    scene.create_sphere("ball", (-0.6, 0.6, 4.0), 0.6, white)
-    scene.create_sphere("mball", (0.8, 0.5, 4.3), 0.5, rough)
-    scene.create_sphere("lamps", (0.0, 2.8, 4.0), 0.7, lamp)
-    return scene
+    return bench_suite.gradient_scene()[0]
 
 
 def _setup(fields, spp=4, w=24, h=18, **kw):

@@ -1,7 +1,7 @@
 """Real multi-process bring-up: jax.distributed over a local TCP cluster.
 
 Two subprocesses x 4 virtual CPU devices form one 8-device global mesh —
-the exact `jax.distributed.initialize` path a multi-host TPU pod uses
+the exact `jax.distributed.initialize` path a multi-host GPU cluster uses
 (SURVEY.md §2.4 last row).  The worker pins that the psum genuinely
 crosses the process boundary (each process contributes a distinct power of
 ten), that a sample-sharded render over the cross-process mesh matches the

@@ -1,13 +1,8 @@
-"""Shared bounce physics + fused fwd+bwd kernel validation.
+"""Shared bounce physics (kernels/physics.py) validation.
 
-Layered strategy:
-  1. CPU (fast): drive ``physics.trace_bounce`` as a pure-jnp bounce chain —
-     the exact function both Pallas kernels trace — and check its forward
-     AND ``jax.grad`` against the SoA integrator oracle.
-  2. TPU-gated: the actual fused kernel (Mosaic plumbing: VMEM residuals,
-     SMEM gradient accumulation) against the same oracle.  Interpret-mode
-     evaluation of the vjp'd kernel takes ~10 min, so it only runs where
-     Mosaic compiles it in seconds.
+Drives ``physics.trace_bounce`` — the function the Triton megakernel runs
+per bounce — as a pure-jnp bounce chain and checks its forward AND
+``jax.grad`` against the SoA integrator oracle.
 """
 
 import numpy as np
@@ -168,59 +163,3 @@ def test_physics_chain_grads_with_rr_finite():
     g = jax.grad(loss)(params)
     for k, v in g.items():
         assert np.isfinite(np.asarray(v)).all(), k
-
-
-# ---------------------------------------------------------------------------
-# Kernel plumbing (TPU only — interpret-mode evaluation takes ~10 min).
-# ---------------------------------------------------------------------------
-
-
-@pytest.mark.skipif(jax.default_backend() != "tpu",
-                    reason="fused grad kernel requires Mosaic (TPU)")
-def test_fused_kernel_matches_soa_on_tpu():
-    from spt_tpu.kernels import megakernel_grad
-    sd = _scene().compile()
-    kw = dict(max_bounces=3, rr_depth=5, use_nee=True, use_mis=True, seed=4)
-    mt = static_mtypes(sd)
-    params = G.get_params(sd, ("albedo", "emission", "roughness",
-                               "centers", "radii"))
-
-    def loss(p):
-        sc = G.apply_params(sd, p)
-        return jnp.sum(render_megasample_soa(sc, CAM, W, H, jnp.arange(2),
-                                             mtypes=mt, **kw))
-
-    val_ref, g_ref = jax.value_and_grad(loss)(params)
-    img, g_pal = megakernel_grad.render_and_grad(sd, CAM, W, H, 0, 2, **kw)
-    np.testing.assert_allclose(float(jnp.sum(img)), float(val_ref), rtol=1e-3)
-    for key in ("albedo", "emission", "roughness"):
-        np.testing.assert_allclose(np.asarray(g_pal[key]),
-                                   np.asarray(g_ref[key]),
-                                   rtol=3e-2, atol=3e-3, err_msg=key)
-
-
-@pytest.mark.skipif(jax.default_backend() != "tpu",
-                    reason="custom_vjp pallas render requires Mosaic (TPU)")
-def test_pallas_custom_vjp_matches_soa_grad():
-    from spt_tpu.diff import pallas_diff
-    sd = _scene().compile()
-    kw = dict(max_bounces=3, rr_depth=5, use_nee=True, use_mis=True, seed=4)
-    spp = 2
-    render = pallas_diff.make_pallas_render_fn(sd, CAM, W, H, spp=spp, **kw)
-    params = G.get_params(sd, ("albedo", "roughness"))
-
-    val_p, g_p = jax.value_and_grad(
-        lambda p: jnp.sum(render(p, 0)))(params)
-
-    mt = static_mtypes(sd)
-
-    def loss(p):
-        sc = G.apply_params(sd, p)
-        return jnp.sum(render_megasample_soa(sc, CAM, W, H, jnp.arange(spp),
-                                             mtypes=mt, **kw)) / spp
-
-    val_s, g_s = jax.value_and_grad(loss)(params)
-    np.testing.assert_allclose(float(val_p), float(val_s), rtol=1e-3)
-    for key in params:
-        np.testing.assert_allclose(np.asarray(g_p[key]), np.asarray(g_s[key]),
-                                   rtol=3e-2, atol=3e-3, err_msg=key)

@@ -4,14 +4,10 @@ A sphere optimized outside its build-time AABB must stay hittable.  The
 reference rebuilds its acceleration structure on every scene edit
 (/root/reference/libs/render/src/engines/pathtracer/backends/cpu/
 CPUPathTracer.cpp:374-403); under jax.grad a rebuild isn't traceable, so
-both differentiable paths refit node AABBs over the static topology:
+the differentiable path refits node AABBs over the static topology
+(core/bvh.refit_bvh wired into diff/gradients.make_render_fn).
 
-  * SoA integrator path: core/bvh.refit_bvh wired into
-    diff/gradients.make_render_fn;
-  * packet-BVH kernel path: megakernel_bvh.refit_nodef_jnp wired into
-    diff/pallas_diff._make_bvh_render_fn.
-
-Each is pinned against a FRESH compile of the moved scene (image and
+It is pinned against a FRESH compile of the moved scene (image and
 gradients) — without the refit these renders silently miss the moved
 sphere.
 """
@@ -143,42 +139,3 @@ def test_soa_gradients_flow_to_moved_spheres():
     assert np.isfinite(g).all()
     assert (np.abs(g).max(axis=1) > 0.0).sum() >= 3, \
         "moved spheres invisible to gradients (stale BVH?)"
-
-
-def _pallas_render(sd, **kw):
-    # Interpret-mode vjp of the BVH walk costs minutes per block of work
-    # (see tests/test_pallas_bvh_grad.py), so keep every axis tiny: a
-    # handful of prims, 8-wide leaf blocks, 12x8 pixels, 1 spp, 2 bounces,
-    # and one combined test instead of a per-field matrix.
-    from spt_tpu.diff import pallas_diff
-    return pallas_diff._make_bvh_render_fn(
-        sd, DENSE_CAM, 12, 8, spp=1, max_bounces=2, rr_depth=5,
-        use_nee=False, use_mis=False, seed=1, block=8, interpret=True,
-        **kw)
-
-
-def test_pallas_bvh_refit_image_and_grads():
-    """Kernel-path refit: pallas render with moved centers + doubled radii
-    == a fresh scene compile, and gradients reach the moved spheres."""
-    sd = _dense_scene(12).compile(use_bvh=True)
-    moved = _shifted_centers(sd)
-    r = np.asarray(sd.radii).copy()
-    r[1:] *= 1.5          # scale the small spheres; prim 0 is the huge
-    r2x = jnp.asarray(r)  # floor (x1.5 would swallow the camera)
-    render = _pallas_render(sd)
-    img = np.asarray(render({"centers": moved, "radii": r2x}, 0))
-
-    sd2 = _dense_scene(12).compile(use_bvh=True)
-    sd2 = dataclasses.replace(sd2, centers=moved, radii=r2x)
-    img2 = np.asarray(_pallas_render(sd2)({}, 0))
-    np.testing.assert_allclose(img, img2, rtol=1e-4, atol=1e-5)
-    # Sanity: the geometry change is visible vs the unmodified params.
-    img_base = np.asarray(render({}, 0))
-    assert np.abs(img - img_base).max() > 1e-3
-
-    def loss(c):
-        return jnp.sum(render({"centers": c, "radii": r2x}, 0))
-
-    g = np.asarray(jax.grad(loss)(moved))
-    assert np.isfinite(g).all()
-    assert (np.abs(g).max(axis=1) > 0.0).sum() >= 2

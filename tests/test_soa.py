@@ -81,3 +81,58 @@ def test_soa_stats_counts_rays():
     n = float(n)
     # Between 1 and (bounces + shadow rays) per path.
     assert 16 * 16 * 2 <= n <= 16 * 16 * 2 * 6
+
+
+def _sky_scene(sky):
+    """Lit scene under each sky mode; the env map is a smooth, seeded
+    equirect image so misses carry direction-dependent radiance."""
+    scene = _scene()
+    if sky == "envmap":
+        rng = np.random.default_rng(3)
+        scene.set_environment_map(
+            rng.uniform(0.1, 1.5, (8, 16, 3)).astype(np.float32))
+    elif sky == "constant":
+        scene.set_sky(spt_tpu.SKY_CONSTANT, horizon=(0.3, 0.4, 0.5))
+    elif sky == "gradient":
+        scene.set_sky(spt_tpu.SKY_GRADIENT)
+    return scene
+
+
+@pytest.mark.parametrize("dof", [False, True])
+@pytest.mark.parametrize("use_nee,use_mis",
+                         [(True, True), (True, False), (False, False)])
+@pytest.mark.parametrize("sky", ["none", "gradient", "constant", "envmap"])
+def test_soa_matches_aos_matrix(sky, use_nee, use_mis, dof):
+    """SoA ≡ AoS oracle for every sky mode × estimator × camera model."""
+    sd = _sky_scene(sky).compile()
+    cam = Camera.look_at((0, 1.0, -1.2), (0, 0.8, 4.0), fov_degrees=55,
+                         aperture=0.1 if dof else 0.0, focus_dist=5.0)
+    kw = dict(max_bounces=3, rr_depth=2, use_nee=use_nee, use_mis=use_mis,
+              seed=13, dof=dof)
+    ids = jnp.arange(2)
+    a = np.asarray(render_megasample(sd, cam, 12, 12, ids, **kw))
+    b = np.asarray(render_megasample_soa(sd, cam, 12, 12, ids, **kw))
+    assert np.isfinite(b).all()
+    close = np.isclose(a, b, rtol=2e-3, atol=2e-4).all(axis=-1)
+    assert close.mean() > 0.97, f"{(~close).sum()} px diverge"
+    assert abs(a.mean() - b.mean()) / a.mean() < 0.01
+
+
+@pytest.mark.parametrize("n_prims", [300, 1000])
+def test_soa_bvh_scene_matches_aos(n_prims):
+    """Gather+BVH SoA mode ≡ AoS oracle on 300- and 1k-sphere BVH scenes."""
+    import bench_suite
+
+    sd = bench_suite.scene_10k(n_prims, seed=5).compile(use_bvh=True)
+    assert sd.bvh is not None and sd.capacity > SOA_MAX_PRIMS
+    cam = bench_suite.camera_10k()
+    kw = dict(max_bounces=3, rr_depth=2, use_nee=True, use_mis=True, seed=4)
+    ids = jnp.arange(2)
+    a = np.asarray(jax.jit(lambda s, i: render_megasample(
+        s, cam, 24, 16, i, **kw))(sd, ids))
+    b = np.asarray(jax.jit(lambda s, i: render_megasample_soa(
+        s, cam, 24, 16, i, **kw))(sd, ids))
+    assert a.max() > 0.0
+    close = np.isclose(a, b, rtol=2e-3, atol=2e-4).all(axis=-1)
+    assert close.mean() > 0.97, f"{(~close).sum()} px diverge"
+    assert abs(a.mean() - b.mean()) / a.mean() < 0.01

@@ -2,7 +2,7 @@
 
 Each process owns 4 virtual CPU devices; `jax.distributed.initialize` with
 the TCP coordinator forms one 8-device global mesh across both processes —
-the same bring-up path a real multi-host TPU pod uses (SNIPPETS.md pattern,
+the same bring-up path a real multi-host GPU cluster uses (SNIPPETS.md pattern,
 SURVEY.md §2.4 last row).  The worker then proves the collectives actually
 cross the process boundary:
 
